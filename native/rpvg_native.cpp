@@ -3130,7 +3130,7 @@ void rpvg_diploid_posteriors_ragged(
 }
 
 // Selection-only half of rpvg_diploid_posteriors_ragged, for pair
-// scores computed elsewhere (the TPU backend computes the (P, P)
+// scores computed elsewhere (the device path computes the (P, P)
 // log-likelihood tensors on device and ships them back): apply the
 // heterozygous permutation factor, the relative-likelihood cutoff, and
 // posterior normalisation over the kept upper-triangle pairs.

@@ -1,7 +1,7 @@
 """Expectation-maximisation abundance estimation as JAX kernels.
 
 The EM fixed point is a dense (R, P+1) matvec pair per iteration — the
-TPU-friendly heart of the quantification models.  Two entry points:
+data-parallel heart of the quantification models.  Two entry points:
 
 * :func:`em_abundances` — one cluster, exact reference convergence
   semantics (/root/reference/src/path_abundance_estimator.cpp:47-114).
@@ -15,47 +15,14 @@ stay within `max_rel_em_conv` for 10 consecutive iterations.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..constants import MIN_EM_ABUNDANCE, MIN_EM_CONV_ITS
-from ..backend import safe_default_backend
-
-
-def _em_step(probs, counts, abundances, total_count):
-    """One EM iteration: responsibilities then abundance update."""
-    weighted = probs * abundances[None, :]
-    row_sums = weighted.sum(axis=1, keepdims=True)
-    posteriors = jnp.where(row_sums > 0, weighted / row_sums, 0.0)
-    return (counts @ posteriors) / total_count
-
-
-@partial(jax.jit, static_argnames=("max_em_its",))
-def _em_solve(probs, counts, total_count, max_em_its, max_rel_em_conv):
-    n_cols = probs.shape[1]
-    init_abundances = jnp.full(n_cols, 1.0 / n_cols, dtype=probs.dtype)
-
-    def cond(state):
-        _, _, conv_its, it = state
-        return (it < max_em_its) & (conv_its < MIN_EM_CONV_ITS)
-
-    def body(state):
-        abundances, prev, conv_its, it = state
-        new = _em_step(probs, counts, abundances, total_count)
-        active = new >= MIN_EM_ABUNDANCE
-        rel_diff = jnp.where(active, jnp.abs(new - abundances) / jnp.where(active, new, 1.0), 0.0)
-        has_converged = jnp.all(rel_diff <= max_rel_em_conv)
-        conv_its = jnp.where(has_converged, conv_its + 1, 0)
-        return new, abundances, conv_its, it + 1
-
-    abundances, _, _, iterations = jax.lax.while_loop(
-        cond, body, (init_abundances, init_abundances, jnp.int32(0), jnp.int32(0))
-    )
-    return abundances, iterations
 
 
 def _ceil_pow2(n: int, floor: int = 8) -> int:
@@ -84,9 +51,7 @@ def em_abundances(
     C++ ragged kernel runs instead (the same per-cluster loop the
     batched sweep uses, so per-cluster and batched calls are bitwise
     identical)."""
-    import jax as _jax
-
-    if safe_default_backend() != "tpu":
+    if not backend.device_enabled():
         from .batching import native_em_available, run_native_em
 
         if native_em_available():
@@ -95,21 +60,19 @@ def em_abundances(
             )
             return path_counts, noise_count
 
-    R, C = probs.shape
-    R_pad, C_pad = _ceil_pow2(R), _ceil_pow2(C)
-    probs_pad = np.zeros((1, R_pad, C_pad), dtype=np.float64)
-    probs_pad[0, :R, :C] = probs
-    counts_pad = np.zeros((1, R_pad), dtype=np.float64)
-    counts_pad[0, :R] = counts
-    col_mask = np.zeros((1, C_pad), dtype=np.float64)
-    col_mask[0, :C] = 1.0
+    from .batching import pad_em_block
 
+    R, C = probs.shape
+    dtype = backend.device_dtype()
+    probs_pad, counts_pad, col_mask = pad_em_block(
+        [(probs, counts)], [0], _ceil_pow2(R), _ceil_pow2(C), dtype
+    )
     fracs, _, _ = _em_solve_batched(
         jnp.asarray(probs_pad),
         jnp.asarray(counts_pad),
         jnp.asarray(col_mask),
         jnp.int32(min(max_em_its, 2**31 - 1)),
-        np.float64(max_rel_em_conv),
+        dtype(max_rel_em_conv),
     )
     abundances = np.asarray(fracs, dtype=np.float64)[0, :C]
     from .batching import em_postprocess
@@ -125,9 +88,11 @@ def _masked_em_step(probs, counts, abundances, total_count, col_mask):
     # total — two matvecs and O(R + C) elementwise, never materialising
     # the (R, C) weighted/posterior temporaries of the textbook step.
     a = abundances * col_mask
-    row_sums = probs @ a
+    row_sums = jnp.dot(probs, a, precision=backend.MATMUL_PRECISION)
     q = jnp.where(row_sums > 0, counts / row_sums, 0.0)
-    return a * (q @ probs) / jnp.maximum(total_count, 1.0)
+    return a * jnp.dot(q, probs, precision=backend.MATMUL_PRECISION) / jnp.maximum(
+        total_count, 1.0
+    )
 
 
 @jax.jit
@@ -187,7 +152,7 @@ def em_abundances_batched(
     unconverged ones re-run alone at the next cap.  `stage_floor` skips
     stages that cannot converge (bounded-EM escalation: the host already
     PROVED these clusters need more than `stage_floor` iterations, so a
-    smaller cap is a wasted device round trip on a high-latency link)."""
+    smaller cap is a wasted device round trip)."""
     from ..parallel.autoshard import shard_batched
 
     probs = jnp.asarray(probs)

@@ -9,7 +9,7 @@ Three engines over the (R, P) probability matrix + noise column:
   ploidy 2 expressed as blocked (R, P, P) log-likelihood tensors with
   threshold masking.  This replaces the reference's serial
   branch-and-bound (calculatePathGroupPosteriorsBounded, :379-473) with
-  a TPU-shaped computation that provably yields the same posteriors: the
+  a data-parallel computation that provably yields the same posteriors: the
   B&B's pruning bound is conservative, and its final filter (drop
   likelihoods below max * min_rel_likelihood) is re-applied here over
   the exact full set.
@@ -37,9 +37,9 @@ from ..constants import (
     MIN_GIBBS_CHAINS,
     MIN_GIBBS_ITS,
 )
+from .. import backend
 from ..mathutils import num_permutations
 from .matrices import calc_path_log_frequencies
-from ..backend import safe_default_backend
 
 _LOWEST = -np.finfo(np.float64).max
 
@@ -94,7 +94,7 @@ def _diploid_pair_scores(probs, noise, counts, log_freqs):
     # group_probs[r, i, j] = noise[r] + (probs[r,i] + probs[r,j]) / 2
     group = noise[:, None, None] + half[:, :, None] + half[:, None, :]
     logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-    pair_ll = jnp.einsum("r,rij->ij", counts, logs)
+    pair_ll = jnp.einsum("r,rij->ij", counts, logs, precision=backend.MATMUL_PRECISION)
     pair_ll = pair_ll + log_freqs[:, None] + log_freqs[None, :]
     return pair_ll
 
@@ -106,7 +106,7 @@ def _diploid_pair_scores_block(probs, noise, counts, log_freqs, half_block, bloc
     half = probs * 0.5
     group = noise[:, None, None] + half[:, :, None] + half_block[:, None, :]
     logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-    pair_ll = jnp.einsum("r,rij->ij", counts, logs)
+    pair_ll = jnp.einsum("r,rij->ij", counts, logs, precision=backend.MATMUL_PRECISION)
     return pair_ll + log_freqs[:, None] + block_log_freqs[None, :]
 
 
@@ -248,7 +248,9 @@ def _diploid_pair_scores_batched(probs, noise, counts, log_freqs):
     half = probs * 0.5
     group = noise[:, :, None, None] + half[:, :, :, None] + half[:, :, None, :]
     logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-    pair_ll = jnp.einsum("br,brij->bij", counts, logs)
+    pair_ll = jnp.einsum(
+        "br,brij->bij", counts, logs, precision=backend.MATMUL_PRECISION
+    )
     return pair_ll + log_freqs[:, :, None] + log_freqs[:, None, :]
 
 
@@ -406,20 +408,19 @@ def diploid_posteriors_batched(
     reference's relative-likelihood cutoff per cluster.
 
     Returns per cluster (group_sets, posteriors)."""
-    from typing import Dict, List, Tuple
+    from typing import List
 
-    import jax as _jax
-
-    if safe_default_backend() != "tpu":
+    if not backend.device_enabled():
         native_results = _diploid_posteriors_native(cluster_inputs, min_rel_likelihood)
         if native_results is not None:
+            backend.count_work("diploid", False, len(cluster_inputs))
             return native_results
 
-    # TPU hybrid routing: tiny clusters' (R, P, P) scoring is
-    # latency-bound on the device link; run them through the native
-    # host kernel WHILE the big buckets' async device chunks are in
-    # flight.  RPVG_TPU_HYBRID_DIPLOID_WORK=0 sends everything to the
-    # device.
+    # Hybrid routing: tiny clusters' (R, P, P) scoring is bound by
+    # per-dispatch latency; run them through the native host kernel
+    # WHILE the big buckets' async device chunks are in flight.  The
+    # cutoff is not yet measured on the H100;
+    # RPVG_TPU_HYBRID_DIPLOID_WORK=0 sends everything to the device.
     import os as _os
 
     host_idx: List[int] = []
@@ -437,66 +438,30 @@ def diploid_posteriors_batched(
             ]
     host_set = set(host_idx)
 
-    buckets: Dict[Tuple[int, int], List[int]] = {}
     giant_idx: List[int] = []
+    device_idx: List[int] = []
     pair_limit = _pair_tensor_limit()
     for idx, (probs, _, _, _) in enumerate(cluster_inputs):
         if idx in host_set:
             continue
         R, P = probs.shape
-        R_pad, P_pad = _ceil_pow4(R), _ceil_pow2(P)
-        if R_pad * P_pad * P_pad > pair_limit:
+        if _ceil_pow4(R) * _ceil_pow2(P) ** 2 > pair_limit:
             # Giant cluster: the padded (B, R, P, P) batched tensor
             # would blow device memory — score it through the
             # per-cluster blocked/model-axis-sharded path instead
             # (_pair_scores_blocked; the reference's analogue is the
             # serial branch-and-bound, src/path_estimator.cpp:379-473).
             giant_idx.append(idx)
-            continue
-        buckets.setdefault((R_pad, P_pad), []).append(idx)
+        else:
+            device_idx.append(idx)
 
     results = [None] * len(cluster_inputs)
-    # TPU has no native f64: pad in f32 (and halve the wire bytes);
-    # the CPU JAX fallback keeps f64 to match the per-cluster engine.
-    dtype = np.float32 if safe_default_backend() == "tpu" else np.float64
-    # Dispatch every chunk asynchronously (transfers and kernels
-    # overlap over the high-latency accelerator link), then gather.
-    pending = []
-    for (R_pad, P_pad), indices in buckets.items():
-        max_batch = max(1, (1 << 24) // max(1, R_pad * P_pad * P_pad))
-        for chunk_start in range(0, len(indices), max_batch):
-            chunk = indices[chunk_start : chunk_start + max_batch]
-            B = _ceil_pow2(len(chunk), floor=1)
-            probs_pad = np.zeros((B, R_pad, P_pad), dtype=dtype)
-            noise_pad = np.ones((B, R_pad), dtype=dtype)
-            counts_pad = np.zeros((B, R_pad), dtype=dtype)
-            log_freqs_pad = np.full((B, P_pad), -np.inf, dtype=dtype)
-            for b, idx in enumerate(chunk):
-                probs, noise, counts, path_counts = cluster_inputs[idx]
-                R, P = probs.shape
-                probs_pad[b, :R, :P] = probs
-                noise_pad[b, :R] = noise
-                counts_pad[b, :R] = counts
-                log_freqs_pad[b, :P] = calc_path_log_frequencies(path_counts)
-
-            from ..parallel.autoshard import shard_batched
-
-            pending.append(
-                (
-                    chunk,
-                    _diploid_pair_scores_batched(
-                        *shard_batched(
-                            jnp.asarray(probs_pad),
-                            jnp.asarray(noise_pad),
-                            jnp.asarray(counts_pad),
-                            jnp.asarray(log_freqs_pad),
-                        )
-                    ),
-                )
-            )
+    backend.count_work("diploid", False, len(host_idx))
+    backend.count_work("diploid", True, len(cluster_inputs) - len(host_idx))
+    pending = dispatch_pair_scores(cluster_inputs, device_idx)
 
     # Device chunks are in flight; the host kernel fills in the
-    # latency-bound small clusters meanwhile.
+    # small clusters meanwhile.
     if host_idx:
         host_results = _diploid_posteriors_native(
             [cluster_inputs[idx] for idx in host_idx], min_rel_likelihood
@@ -512,12 +477,7 @@ def diploid_posteriors_batched(
             probs, noise, counts, path_counts, min_rel_likelihood
         )
 
-    select_jobs = []  # (idx, (P, P) score matrix)
-    for chunk, pair_ll_dev in pending:
-        pair_ll = np.asarray(pair_ll_dev, dtype=np.float64)
-        for b, idx in enumerate(chunk):
-            P = cluster_inputs[idx][0].shape[1]
-            select_jobs.append((idx, pair_ll[b, :P, :P]))
+    select_jobs = gather_pair_scores(pending, cluster_inputs)
 
     native = _native_diploid_select(
         [m for _, m in select_jobs], min_rel_likelihood
@@ -529,6 +489,67 @@ def diploid_posteriors_batched(
         for idx, scores in select_jobs:
             results[idx] = _diploid_select(scores, min_rel_likelihood)
     return results
+
+
+def dispatch_pair_scores(cluster_inputs, indices, dtype=None):
+    """Enqueue the (P, P) pair log-likelihoods of the indexed clusters
+    on the device without blocking: clusters bucket into padded
+    (R_pad, P_pad) shapes (padded rows get unit noise and zero counts,
+    padded paths a -inf prior) and each chunk is one batched kernel.
+    Returns a pending handle for :func:`gather_pair_scores`."""
+    from typing import Dict, List, Tuple
+
+    from ..parallel.autoshard import shard_batched
+
+    if dtype is None:
+        dtype = backend.device_dtype()
+    buckets: Dict[Tuple[int, int], List[int]] = {}
+    for idx in indices:
+        R, P = cluster_inputs[idx][0].shape
+        buckets.setdefault((_ceil_pow4(R), _ceil_pow2(P)), []).append(idx)
+    pending = []
+    for (R_pad, P_pad), bucket in buckets.items():
+        max_batch = max(1, (1 << 24) // max(1, R_pad * P_pad * P_pad))
+        for chunk_start in range(0, len(bucket), max_batch):
+            chunk = bucket[chunk_start : chunk_start + max_batch]
+            B = _ceil_pow2(len(chunk), floor=1)
+            probs_pad = np.zeros((B, R_pad, P_pad), dtype=dtype)
+            noise_pad = np.ones((B, R_pad), dtype=dtype)
+            counts_pad = np.zeros((B, R_pad), dtype=dtype)
+            log_freqs_pad = np.full((B, P_pad), -np.inf, dtype=dtype)
+            for b, idx in enumerate(chunk):
+                probs, noise, counts, path_counts = cluster_inputs[idx]
+                R, P = probs.shape
+                probs_pad[b, :R, :P] = probs
+                noise_pad[b, :R] = noise
+                counts_pad[b, :R] = counts
+                log_freqs_pad[b, :P] = calc_path_log_frequencies(path_counts)
+            pending.append(
+                (
+                    chunk,
+                    _diploid_pair_scores_batched(
+                        *shard_batched(
+                            jnp.asarray(probs_pad),
+                            jnp.asarray(noise_pad),
+                            jnp.asarray(counts_pad),
+                            jnp.asarray(log_freqs_pad),
+                        )
+                    ),
+                )
+            )
+    return pending
+
+
+def gather_pair_scores(pending, cluster_inputs):
+    """Block on :func:`dispatch_pair_scores` chunks; returns
+    [(cluster index, (P, P) float64 score matrix)]."""
+    out = []
+    for chunk, pair_ll_dev in pending:
+        pair_ll = np.asarray(pair_ll_dev, dtype=np.float64)
+        for b, idx in enumerate(chunk):
+            P = cluster_inputs[idx][0].shape[1]
+            out.append((idx, pair_ll[b, :P, :P]))
+    return out
 
 
 def _native_diploid_select(score_matrices, min_rel_likelihood: float):
@@ -622,7 +643,7 @@ def _gibbs_chains_core(key, probs, noise, counts, log_freqs, group_size, num_cha
         # added per path: logits over P paths.
         group = noise[:, None] + occupied_sum[:, None] + probs / group_size
         logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-        return counts @ logs + log_freqs
+        return jnp.dot(counts, logs, precision=backend.MATMUL_PRECISION) + log_freqs
 
     def chain_step(state, key):
         group = state  # (group_size,) int32 path indices
@@ -768,12 +789,12 @@ def path_group_posteriors_gibbs_batched(cluster_inputs, group_size, rng_keys):
 
     cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
     path_counts).  Returns per cluster (groups, posteriors)."""
-    import jax as _jax
-
-    if group_size == 2 and safe_default_backend() != "tpu":
+    if group_size == 2 and not backend.device_enabled():
         native = _posterior_gibbs_native(cluster_inputs, rng_keys)
         if native is not None:
+            backend.count_work("posterior_gibbs", False, len(cluster_inputs))
             return native
+    backend.count_work("posterior_gibbs", True, len(cluster_inputs))
 
     buckets = {}
     for idx, item in enumerate(cluster_inputs):
@@ -849,9 +870,7 @@ def path_group_posteriors_gibbs(
     Diploid clusters on CPU route through the native sampler (the same
     per-job stream the batched sweep uses, so per-cluster and batched
     calls agree)."""
-    import jax as _jax
-
-    if group_size == 2 and safe_default_backend() != "tpu":
+    if group_size == 2 and not backend.device_enabled():
         native = _posterior_gibbs_native(
             [(probs, noise, counts, path_counts)], [np.asarray(rng_key)]
         )
@@ -910,7 +929,7 @@ def _group_scores_chunk(probs, noise, counts, idx):
         acc = acc + probs[:, :, idx[:, i]]
     group = noise[:, :, None] + acc / k
     logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-    return jnp.einsum("br,brg->bg", counts, logs)
+    return jnp.einsum("br,brg->bg", counts, logs, precision=backend.MATMUL_PRECISION)
 
 
 def _log_permutations_rows(groups: np.ndarray) -> np.ndarray:
@@ -944,12 +963,9 @@ def full_posteriors_batched(cluster_inputs, group_size: int):
 
     cluster_inputs: per cluster (probs (R, P), noise (R,), counts (R,),
     path_counts).  Returns per cluster (groups, posteriors)."""
-    import jax as _jax
-
     from ..parallel.autoshard import shard_batched
 
-    on_tpu = safe_default_backend() == "tpu"
-    dtype = np.float32 if on_tpu else np.float64
+    dtype = backend.device_dtype()
 
     results = [None] * len(cluster_inputs)
     buckets = {}

@@ -15,8 +15,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import backend
 from ..constants import MIN_GIBBS_ABUNDANCE
-from ..backend import safe_default_backend
 
 
 def _multinomial_rows(key, n, p):
@@ -55,7 +55,7 @@ def _gibbs_read_counts_masked(key, probs, counts, init_fracs, col_mask, gamma, n
         path_counts = _multinomial_rows(thin_key, counts, posteriors).sum(axis=0)
 
         # Explicit dtype: random.gamma otherwise draws at the x64
-        # canonical float, breaking the f32 carry on TPU backends.
+        # canonical float, breaking the f32 carry of device buffers.
         draws = (
             jax.random.gamma(gamma_key, path_counts + gamma, dtype=fracs.dtype)
             * col_mask
@@ -229,9 +229,7 @@ def run_native_gibbs(cluster_inputs, rng_keys, num_samples, thin_its, gamma=1.0)
 def _native_gibbs_enabled() -> bool:
     import os
 
-    import jax as _jax
-
-    if safe_default_backend() == "tpu":
+    if backend.device_enabled():
         return False
     if os.environ.get("RPVG_TPU_NATIVE_EM", "1") == "0":
         return False
@@ -267,7 +265,9 @@ def run_batched_gibbs(
     and padded rows/columns contribute zero through the mask.
     """
     if _native_gibbs_enabled():
+        backend.count_work("gibbs", False, len(cluster_inputs))
         return run_native_gibbs(cluster_inputs, rng_keys, num_samples, thin_its, gamma)
+    backend.count_work("gibbs", True, len(cluster_inputs))
 
     per_job = None
     if np.ndim(num_samples) != 0:
@@ -281,13 +281,10 @@ def run_batched_gibbs(
             size *= 2
         num_samples = size
 
-    import jax as _jax
-
     from .batching import _ceil_pow2, _ceil_pow4
 
-    on_tpu = safe_default_backend() == "tpu"
     if dtype is None:
-        dtype = np.float32 if on_tpu else np.float64
+        dtype = backend.device_dtype()
 
     buckets = {}
     for idx, item in enumerate(cluster_inputs):

@@ -24,14 +24,13 @@ from __future__ import annotations
 import os
 import time
 from typing import Optional
-from ..backend import safe_default_backend
+from .. import backend
 
 _CACHE: Optional[dict] = None
 
-# Native fused nested inference costs ~150 ns per dense matrix element
-# end-to-end at bench scale (0.22 s / 1.4M elements on a 4-core host,
-# tools-profiled); used to size the host work window transfers must
-# hide under.
+# Host cost of native fused nested inference per dense matrix element,
+# used to size the host work window transfers must hide under.  A
+# planning constant: not measured on the H100's host.
 DEFAULT_HOST_EM_NS_PER_AREA = 150.0
 
 
@@ -45,7 +44,7 @@ def probe_link(force: bool = False) -> Optional[dict]:
 
     import jax
 
-    if safe_default_backend() == "cpu":
+    if not backend.device_enabled():
         _CACHE = {}
         return None
 

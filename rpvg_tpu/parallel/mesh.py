@@ -1,7 +1,7 @@
 """Device mesh and sharded inference steps.
 
 Parallelism layout (SURVEY §2.3 mapping of the reference's OpenMP
-structure onto a TPU mesh):
+structure onto a device mesh):
 
 * **data axis** — clusters are independent, so padded cluster batches
   shard freely across devices (the reference's dynamic parallel-for over
@@ -13,8 +13,8 @@ structure onto a TPU mesh):
   reductions (src/main.cpp:1029-1057, :203-235) — expressed as psums.
 
 The same code runs on a virtual CPU mesh
-(``--xla_force_host_platform_device_count``) for CI and on real TPU
-slices.
+(``--xla_force_host_platform_device_count``) for CI and on the GPUs of
+one host.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..backend import MATMUL_PRECISION
 from ..infer.em import _em_solve_batched
 
 
@@ -86,7 +87,7 @@ def sharded_diploid_scores(mesh: Mesh):
         half = probs * 0.5
         group = noise[:, None, None] + half[:, :, None] + half[:, None, :]
         logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-        pair_ll = jnp.einsum("r,rij->ij", counts, logs)
+        pair_ll = jnp.einsum("r,rij->ij", counts, logs, precision=MATMUL_PRECISION)
         return pair_ll + log_freqs[:, None] + log_freqs[None, :]
 
     return score

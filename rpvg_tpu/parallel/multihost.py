@@ -18,7 +18,7 @@ Three drivers:
   (one-host many-process stand-in for multi-host; workers return pickled
   shard indexes to rank 0);
 * :func:`run_pipeline_distributed` — true multi-process execution over
-  ``jax.distributed`` (Gloo collectives on CPU, ICI/DCN on TPU pods):
+  ``jax.distributed`` (Gloo collectives on CPU, NCCL between GPUs):
   sharded fragment pass, all-gathered dedup merge, strided per-process
   cluster inference, results gathered to process 0 — byte-identical to
   single-host.
@@ -440,9 +440,12 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
     Start method: `fork` by default on platforms that have it — workers
     inherit the parent-built path index and finder copy-on-write, so
     per-worker startup is process spawn only (the workers run pure
-    native/numpy code and never touch the JAX backend).  Override with
+    native/numpy code and never touch the JAX backend).  A parent that
+    already drives an accelerator spawns instead: its device runtime's
+    threads make fork unsafe.  Workers are pinned to the CPU platform,
+    so none ever opens the accelerator.  Override with
     RPVG_TPU_MP_CONTEXT=spawn (workers then rebuild state from the
-    pickled config, the conservative pre-round-3 behavior)."""
+    pickled config)."""
     import multiprocessing as mp
     import os as _os
 
@@ -457,10 +460,12 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
 
     import time as _time
 
-    ctx_name = _os.environ.get(
-        "RPVG_TPU_MP_CONTEXT",
-        "fork" if "fork" in mp.get_all_start_methods() else "spawn",
+    from ..backend import initialised_platform
+
+    can_fork = "fork" in mp.get_all_start_methods() and initialised_platform() in (
+        None, "cpu",
     )
+    ctx_name = _os.environ.get("RPVG_TPU_MP_CONTEXT", "fork" if can_fork else "spawn")
     ctx = mp.get_context(ctx_name)
     # Each worker gets an equal share of the configured threads: the
     # process axis carries the parallelism when workers >= threads (the
@@ -483,7 +488,17 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
     from ..pipeline import submit_info_parse
 
     frag_start = _time.perf_counter()
-    pool = ctx.Pool(num_workers)
+    worker_env = {"JAX_PLATFORMS": "cpu", "CUDA_VISIBLE_DEVICES": ""}
+    saved_env = {key: _os.environ.get(key) for key in worker_env}
+    _os.environ.update(worker_env)
+    try:
+        pool = ctx.Pool(num_workers)
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                _os.environ.pop(key, None)
+            else:
+                _os.environ[key] = value
     # Overlap the info-TSV parse with the worker scan, exactly like the
     # single-process pipeline (shared helper so the arguments cannot
     # diverge between the two drivers).  Submitted AFTER the pool fork:
@@ -491,14 +506,6 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
     # lock the thread owned at fork time; the parse is only consumed
     # post-merge in the parent, so it loses no overlap by starting here.
     info_future = submit_info_parse(config)
-    # Guarded accelerator probe, also AFTER the fork for the same
-    # reason (its thread runs subprocess.Popen — a worker forked
-    # mid-Popen inherits locked allocator state); it still overlaps
-    # the whole worker scan, and the first consult is in the parent's
-    # inference half (see rpvg_tpu/backend.py).
-    from ..backend import start_probe
-
-    start_probe()
     try:
         shard_payloads = pool.map(_shard_worker, worker_args)
     except BaseException:

@@ -155,7 +155,7 @@ def test_fused_gibbs_matches_staged():
 @pytest.mark.skipif(not native_em_available(), reason="native library unavailable")
 def test_fused_deferred_tasks_match_full_native(monkeypatch):
     # Force a tiny em_area_cutoff so most tasks defer to run_batched_em
-    # (the TPU hybrid path) and slots combine through the Python
+    # (the device hybrid path) and slots combine through the Python
     # fallback: results must equal the all-native fused run exactly
     # (run_batched_em routes to the same native EM kernel on CPU).
     import rpvg_tpu.native as native_mod

@@ -18,10 +18,6 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 
 
@@ -193,5 +189,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
     rc = main()
     os._exit(rc)

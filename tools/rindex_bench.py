@@ -22,7 +22,7 @@ divergence with a measurement instead of a sentence:
    upper bound on what ANY faster locate (including a perfect r-index,
    which is O(1)/occurrence instead of O(log S)) could buy.
 
-Writes RINDEX_r05.json and prints it.
+Writes rindex_bench.json and prints it.
 """
 
 import ctypes
@@ -217,7 +217,7 @@ def main() -> int:
         ),
     }
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "RINDEX_r05.json")
+                        "rindex_bench.json")
     with open(path, "w") as handle:
         json.dump(out, handle, indent=1)
     print(json.dumps(out, indent=1))
