@@ -4,28 +4,31 @@
     python chip_smoke.py                 # one card, phases 1-4
     python chip_smoke.py --four-cards    # four cards, the data-mesh phase only
 
-Everything runs in this one process, which is the only one that opens
-the card; the CPU reference runs are child processes pinned to the CPU.
+One process uses the card at a time: a short child checks for a GPU,
+a second runs the --multiprocess CLI path, then this process takes the
+card for everything else.  The CPU reference runs are child processes
+pinned to the CPU.
 
-1. Device check: the first JAX device must be a GPU.  Prints its kind,
+1. Device check: JAX's first device must be a GPU.  Prints its kind,
    the device count, and nvidia-smi's name and power limit.
 2. Kernels at real widths, on the cluster matrices of the bench dataset
    (bench.make_dataset, 100k read pairs over ~36,000 paths): the batched
    EM, the diploid pair scores and the read-count Gibbs sampler on the
    device, each against the native float64 kernels.
-3. End to end through rpvg_tpu.cli.main: haplotype-transcripts,
-   transcripts -n 8 and haplotypes, each compared with the same command
-   run on the CPU, and haplotype-transcripts with --multiprocess 2,
-   which must be byte-identical to the single-process run.
+3. End to end through the CLI: haplotype-transcripts, transcripts -n 8
+   (every cluster's EM and Gibbs on the device) and haplotypes, each
+   compared with the same command run on the CPU; and
+   haplotype-transcripts with --multiprocess 2, run as a plain CLI
+   process that forks its workers before it starts the GPU, which must
+   be byte-identical to the single-process run.
 4. The card-only tests: pytest -m gpu.
 
 --four-cards runs haplotype-transcripts and transcripts -n 8 over the
-4-way data mesh and again with RPVG_TPU_AUTOSHARD=0, and haplotypes with
-the pair-tensor guard lowered so the model-axis-sharded pair scoring
-runs.  It reports whether mesh and single-device outputs are
-byte-identical (they are on the CPU backend; on H100s the sharded
-programs round differently) and requires them to agree within the
-end-to-end tolerances.
+4-way data mesh and again with RPVG_TPU_AUTOSHARD=0, and requires
+byte-identical outputs.  Then haplotypes with the pair-tensor guard
+lowered, so the model-axis-sharded pair scoring runs; it is a different
+summation than the single device's blocked scoring, and must agree with
+it within the end-to-end tolerances.
 
 The last line of standard output is one JSON object:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -174,6 +177,21 @@ def log(message: str) -> None:
 # ---------------------------------------------------------------- phases
 
 
+def probe_device(want_count: int) -> None:
+    """Fail fast where JAX finds no GPU, from a child process: this one
+    must not open the card before the --multiprocess check."""
+    code = "import jax; d = jax.devices(); print(d[0].platform, len(d))"
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
+    )
+    found = proc.stdout.split()
+    check(
+        proc.returncode == 0 and found[:1] == ["gpu"],
+        f"no GPU: JAX reports {(proc.stdout.strip() or proc.stderr.strip()[-300:])!r}",
+    )
+    check(int(found[1]) >= want_count, f"need {want_count} GPUs, JAX sees {found[1]}")
+
+
 def device_check(want_count: int):
     import jax
 
@@ -192,19 +210,22 @@ def device_check(want_count: int):
     return devices
 
 
-def make_data(data_dir: str, pairs: int, transcripts: int) -> None:
+def make_data(pairs: int, transcripts: int) -> str:
+    """The bench dataset of this size, made once into its own directory
+    (bench.make_dataset writes fixed file names)."""
     sys.path.insert(0, REPO)
     import bench
 
-    marker = os.path.join(data_dir, f"done_{pairs}_{transcripts}")
-    if os.path.exists(marker):
-        return
-    os.makedirs(data_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    bench.make_dataset(pairs, transcripts, data_dir, cli_inputs=True)
-    open(marker, "w").close()
-    log(f"dataset: {pairs} pairs, {transcripts} transcripts "
-        f"({time.perf_counter() - t0:.1f}s)")
+    data_dir = os.path.join(REPO, "smoke_data", "data", f"{pairs}_{transcripts}")
+    marker = os.path.join(data_dir, "done")
+    if not os.path.exists(marker):
+        os.makedirs(data_dir, exist_ok=True)
+        t0 = time.perf_counter()
+        bench.make_dataset(pairs, transcripts, data_dir, cli_inputs=True)
+        open(marker, "w").close()
+        log(f"dataset: {pairs} pairs, {transcripts} transcripts "
+            f"({time.perf_counter() - t0:.1f}s)")
+    return data_dir
 
 
 def cli_args(data_dir, model, prefix, extra=()):
@@ -379,9 +400,14 @@ def check_gibbs(em_inputs):
     ):
         jobs.append((probs, counts, path_counts, noise, float(counts.sum())))
     job_keys = [np.asarray(jax.random.PRNGKey(i)) for i in range(len(jobs))]
+    from rpvg_tpu import backend
+
+    backend.WORK.clear()
     t0 = time.perf_counter()
-    dev = rg.run_batched_gibbs(jobs, job_keys, GIBBS_SAMPLES, GIBBS_THIN)
+    with Env(RPVG_TPU_HYBRID_EM_AREA="0"):
+        dev = rg.run_batched_gibbs(jobs, job_keys, GIBBS_SAMPLES, GIBBS_THIN)
     t_dev = time.perf_counter() - t0
+    check(backend.WORK["gibbs.device"] == len(jobs), "gibbs: the device sampler did not run")
     host = rg.run_native_gibbs(jobs, job_keys, GIBBS_SAMPLES, GIBBS_THIN)
     worst_se, min_p = 0.0, 1.0
     for (dn, dp), (hn, hp), job in zip(dev, host, jobs):
@@ -429,19 +455,47 @@ def phase_kernels(data_dir, work_dir):
     check_gibbs(em_inputs)
 
 
+# (model, extra CLI arguments, environment of the GPU run).  At the
+# bench's scale every transcripts cluster sits below the hybrid cutoff,
+# where EM and read-count Gibbs run on the native kernels; the cutoff 0
+# puts them all on the device.
 E2E_MODELS = [
-    ("haplotype-transcripts", []),
-    ("transcripts", ["-n", "8"]),
-    ("haplotypes", []),
+    ("haplotype-transcripts", [], {}),
+    ("transcripts", ["-n", "8"], {"RPVG_TPU_HYBRID_EM_AREA": "0"}),
+    ("haplotypes", [], {}),
 ]
+MP_MODEL = "haplotype-transcripts"
 
 
-def phase_end_to_end(data_dir, work_dir):
-    for model, extra in E2E_MODELS:
+def phase_fork(data_dir, work_dir):
+    """haplotype-transcripts --multiprocess 2 as a plain CLI process,
+    before this process opens the card: the driver forks its workers,
+    then starts the GPU while they scan.  Returns the output prefix."""
+    from rpvg_tpu.backend import initialised_platform
+
+    check(initialised_platform() is None, "the card was opened before the fork check")
+    prefix = os.path.join(work_dir, f"gpu_mp_{MP_MODEL}")
+    args = cli_args(data_dir, MP_MODEL, prefix, ["--multiprocess", "2", "--backend", "gpu"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rpvg_tpu.cli"] + args,
+        cwd=REPO, capture_output=True, text=True, timeout=900,
+    )
+    check(proc.returncode == 0, f"--multiprocess 2: rc={proc.returncode}\n{proc.stderr[-2000:]}")
+    forked = "2 worker processes (fork)" in proc.stderr
+    log(f"e2e {MP_MODEL} --multiprocess 2 --backend gpu (CLI process): wall "
+        f"{time.perf_counter() - t0:.2f}s, workers forked before the GPU started: {forked}")
+    check(forked, "the multiprocess driver did not fork its workers")
+    return prefix
+
+
+def phase_end_to_end(data_dir, work_dir, mp_prefix):
+    for model, extra, env in E2E_MODELS:
         label = " ".join([model] + extra)
         gpu_prefix = os.path.join(work_dir, f"gpu_{model}")
         cpu_prefix = os.path.join(work_dir, f"cpu_{model}")
-        run_gpu_cli(cli_args(data_dir, model, gpu_prefix, extra), label)
+        with Env(**env):
+            run_gpu_cli(cli_args(data_dir, model, gpu_prefix, extra), label)
         run_cpu_cli(cli_args(data_dir, model, cpu_prefix, extra), label)
         cmp = compare_tables(gpu_prefix + ".txt", cpu_prefix + ".txt")
         log(
@@ -452,12 +506,8 @@ def phase_end_to_end(data_dir, work_dir):
         )
         check(table_passes(cmp), f"{label}: gpu output does not match the cpu run")
 
-    model = "haplotype-transcripts"
-    mp_prefix = os.path.join(work_dir, f"gpu_mp_{model}")
-    run_gpu_cli(cli_args(data_dir, model, mp_prefix, ["--multiprocess", "2"]),
-                f"{model} --multiprocess 2")
-    identical = same_bytes(mp_prefix, os.path.join(work_dir, f"gpu_{model}"))
-    log(f"e2e {model} --multiprocess 2 byte-identical to single process: {identical}")
+    identical = same_bytes(mp_prefix, os.path.join(work_dir, f"gpu_{MP_MODEL}"))
+    log(f"e2e {MP_MODEL} --multiprocess 2 byte-identical to single process: {identical}")
     check(identical, "--multiprocess 2 outputs differ from the single-process run")
 
 
@@ -473,25 +523,42 @@ def phase_four_cards(data_dir, work_dir):
     from rpvg_tpu.infer import posteriors
     from rpvg_tpu.parallel import autoshard
 
-    for model, extra in E2E_MODELS[:2]:
-        prefixes = {}
-        for label, shard in (("mesh", None), ("single", "0")):
-            with Env(RPVG_TPU_AUTOSHARD=shard):
-                autoshard.data_mesh.cache_clear()
-                if shard is None:
-                    check(autoshard.num_data_shards() == 4, "data mesh does not span 4 GPUs")
-                prefixes[label] = os.path.join(work_dir, f"{label}_{model}")
-                run_gpu_cli(cli_args(data_dir, model, prefixes[label], extra),
-                            f"{model} {' '.join(extra)} {label}")
-        autoshard.data_mesh.cache_clear()
-        cmp = compare_tables(prefixes["mesh"] + ".txt", prefixes["single"] + ".txt")
-        log(
-            f"four cards {model}: 4-way mesh vs one device: byte-identical "
-            f"{same_bytes(prefixes['mesh'], prefixes['single'])}, summed rel err "
-            f"{cmp['sum_rel_err']:.3e}, spearman {cmp['spearman']:.6f}, max abs diff "
-            f"{cmp['max_abs_err']:.3e}"
-        )
-        check(table_passes(cmp), f"{model}: mesh outputs disagree with single-device outputs")
+    split = {"calls": 0, "split": 0}
+    shard_batched = autoshard.shard_batched
+
+    def counting_shard_batched(*arrays):
+        n = autoshard.num_data_shards()
+        split["calls"] += 1
+        split["split"] += n > 1 and all(a.shape[0] % n == 0 for a in arrays)
+        return shard_batched(*arrays)
+
+    autoshard.shard_batched = counting_shard_batched
+    try:
+        for model, extra, env in E2E_MODELS[:2]:
+            prefixes = {}
+            for label, shard in (("mesh", None), ("single", "0")):
+                with Env(RPVG_TPU_AUTOSHARD=shard, **env):
+                    autoshard.data_mesh.cache_clear()
+                    split.update(calls=0, split=0)
+                    prefixes[label] = os.path.join(work_dir, f"{label}_{model}")
+                    run_gpu_cli(cli_args(data_dir, model, prefixes[label], extra),
+                                f"{model} {' '.join(extra)} {label}")
+                    log(f"  {split['split']} of {split['calls']} batched dispatches "
+                        f"split over {autoshard.num_data_shards()} devices")
+                    if shard is None:
+                        check(autoshard.num_data_shards() == 4, "data mesh does not span 4 GPUs")
+                        check(split["split"] > 0, f"{model}: no dispatch was split over the mesh")
+            autoshard.data_mesh.cache_clear()
+            identical = same_bytes(prefixes["mesh"], prefixes["single"])
+            cmp = compare_tables(prefixes["mesh"] + ".txt", prefixes["single"] + ".txt")
+            log(
+                f"four cards {model}: 4-way mesh vs one device: byte-identical {identical} "
+                f"(summed rel err {cmp['sum_rel_err']:.3e}, max abs diff "
+                f"{cmp['max_abs_err']:.3e} over {cmp['rows']} rows)"
+            )
+            check(identical, f"{model}: mesh outputs differ from single-device outputs")
+    finally:
+        autoshard.shard_batched = shard_batched
 
     calls = {"sharded": 0}
     orig = posteriors._pair_scores_sharded
@@ -537,19 +604,20 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     try:
-        devices = device_check(want)
+        probe_device(want)
         sys.path.insert(0, REPO)
         import rpvg_tpu  # noqa: F401  (x64 and the compile cache)
 
-        data_dir = os.path.join(REPO, "smoke_data", "data")
         work_dir = os.path.join(REPO, "smoke_data", "four" if args.four_cards else "one")
         os.makedirs(work_dir, exist_ok=True)
-        make_data(data_dir, args.pairs, args.transcripts)
+        data_dir = make_data(args.pairs, args.transcripts)
+        mp_prefix = None if args.four_cards else phase_fork(data_dir, work_dir)
+        devices = device_check(want)
         if args.four_cards:
             phase_four_cards(data_dir, work_dir)
         else:
             phase_kernels(data_dir, work_dir)
-            phase_end_to_end(data_dir, work_dir)
+            phase_end_to_end(data_dir, work_dir, mp_prefix)
             phase_gpu_tests()
     except CheckFailed as exc:
         print(f"FAILED: {exc}", file=sys.stderr, flush=True)

@@ -12,6 +12,9 @@ runs is decided here and nowhere else:
 * :func:`device_dtype` — the float type device buffers are padded in.
 * :data:`MATMUL_PRECISION` — the precision every device contraction
   asks for, so a GPU never computes them in TF32.
+* :func:`fixed_order_sum` — the sum every batched device kernel uses, so
+  a cluster's result is the same bits whatever batch it shares and
+  however many devices the batch is split over.
 
 :data:`WORK` counts clusters and tasks per engine (``"em.device"``,
 ``"em.host"``, ...), so a run can show which engine did its work.
@@ -24,6 +27,7 @@ from collections import Counter
 from typing import Optional
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 _LOCK = threading.Lock()
@@ -37,6 +41,31 @@ class BackendUnavailable(RuntimeError):
 
 
 MATMUL_PRECISION = jax.lax.Precision.HIGHEST
+
+
+def fixed_order_sum(x, axis: int):
+    """Sum `x` over `axis` by halving: zero-pad the axis to a power of
+    two, then add its upper half onto its lower half until one element
+    is left.
+
+    The order of additions is fixed by the program, not by the
+    compiler: XLA's GPU reductions and cuBLAS pick their summation
+    order per operand shape, so a cluster summed in a batch of B and in
+    a batch of B/4 (one device's share of a 4-way data mesh) can differ
+    in the last bits.  Each step here is an elementwise add, whose
+    result does not depend on the shape around it, and zero padding of
+    the summed axis to a larger power of two does not change the sum."""
+    x = jnp.moveaxis(x, axis, -1)
+    n = x.shape[-1]
+    width = 1
+    while width < n:
+        width *= 2
+    if width != n:
+        x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, width - n)])
+    while width > 1:
+        width //= 2
+        x = x[..., :width] + x[..., width:]
+    return x[..., 0]
 
 
 def platform() -> str:
@@ -86,13 +115,19 @@ def initialised_platform() -> Optional[str]:
     return jax.default_backend() if xla_bridge.backends_are_initialized() else None
 
 
-def require_platform(name: str) -> str:
-    """Pin this process to JAX platform `name` and initialise it now;
-    raises :class:`BackendUnavailable` if it cannot start."""
+def pin_platform(name: str) -> None:
+    """Pin this process to JAX platform `name` without starting it: the
+    first :func:`platform` call starts it."""
     global _PLATFORM
     jax.config.update("jax_platforms", name)
     with _LOCK:
         _PLATFORM = None
+
+
+def require_platform(name: str) -> str:
+    """Pin this process to JAX platform `name` and initialise it now;
+    raises :class:`BackendUnavailable` if it cannot start."""
+    pin_platform(name)
     return platform()
 
 

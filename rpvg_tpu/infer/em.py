@@ -85,12 +85,13 @@ def em_abundances(
 
 def _masked_em_step(probs, counts, abundances, total_count, col_mask):
     # q-formulation: new_c = a_c * (sum_r counts_r/rowsum_r * P_rc) /
-    # total — two matvecs and O(R + C) elementwise, never materialising
-    # the (R, C) weighted/posterior temporaries of the textbook step.
+    # total — two matrix-vector sums and O(R + C) elementwise work.  The
+    # sums run in a fixed order, so a cluster's iterates do not depend
+    # on the batch it shares (backend.fixed_order_sum).
     a = abundances * col_mask
-    row_sums = jnp.dot(probs, a, precision=backend.MATMUL_PRECISION)
+    row_sums = backend.fixed_order_sum(probs * a[None, :], 1)
     q = jnp.where(row_sums > 0, counts / row_sums, 0.0)
-    return a * jnp.dot(q, probs, precision=backend.MATMUL_PRECISION) / jnp.maximum(
+    return a * backend.fixed_order_sum(q[:, None] * probs, 0) / jnp.maximum(
         total_count, 1.0
     )
 
@@ -102,7 +103,7 @@ def _em_solve_batched(probs, counts, col_masks, max_em_its, max_rel_em_conv):
     Padded rows must have zero counts; padded columns zero mask.  Runs a
     fixed-shape while loop until every cluster in the batch converged."""
     B, _, C = probs.shape
-    totals = counts.sum(axis=1)
+    totals = backend.fixed_order_sum(counts, 1)
     n_cols = col_masks.sum(axis=1)
     init = jnp.where(col_masks > 0, 1.0 / jnp.maximum(n_cols, 1.0)[:, None], 0.0)
 

@@ -248,9 +248,7 @@ def _diploid_pair_scores_batched(probs, noise, counts, log_freqs):
     half = probs * 0.5
     group = noise[:, :, None, None] + half[:, :, :, None] + half[:, :, None, :]
     logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-    pair_ll = jnp.einsum(
-        "br,brij->bij", counts, logs, precision=backend.MATMUL_PRECISION
-    )
+    pair_ll = backend.fixed_order_sum(counts[:, :, None, None] * logs, 1)
     return pair_ll + log_freqs[:, :, None] + log_freqs[:, None, :]
 
 
@@ -643,7 +641,7 @@ def _gibbs_chains_core(key, probs, noise, counts, log_freqs, group_size, num_cha
         # added per path: logits over P paths.
         group = noise[:, None] + occupied_sum[:, None] + probs / group_size
         logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-        return jnp.dot(counts, logs, precision=backend.MATMUL_PRECISION) + log_freqs
+        return backend.fixed_order_sum(counts[:, None] * logs, 0) + log_freqs
 
     def chain_step(state, key):
         group = state  # (group_size,) int32 path indices
@@ -651,7 +649,9 @@ def _gibbs_chains_core(key, probs, noise, counts, log_freqs, group_size, num_cha
 
         def slot_body(j, group):
             mask = jnp.arange(group_size) != j
-            occupied = (probs[:, group] * mask[None, :]).sum(axis=1) / group_size
+            occupied = (
+                backend.fixed_order_sum(probs[:, group] * mask[None, :], 1) / group_size
+            )
             logits = conditional_logits(occupied, j)
             new_path = jax.random.categorical(keys[j], logits)
             return group.at[j].set(new_path.astype(group.dtype))
@@ -929,7 +929,7 @@ def _group_scores_chunk(probs, noise, counts, idx):
         acc = acc + probs[:, :, idx[:, i]]
     group = noise[:, :, None] + acc / k
     logs = jnp.where(group > 0, jnp.log(group), -jnp.inf)
-    return jnp.einsum("br,brg->bg", counts, logs, precision=backend.MATMUL_PRECISION)
+    return backend.fixed_order_sum(counts[:, :, None] * logs, 1)
 
 
 def _log_permutations_rows(groups: np.ndarray) -> np.ndarray:

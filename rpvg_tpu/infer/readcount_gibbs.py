@@ -48,11 +48,13 @@ def _gibbs_read_counts_masked(key, probs, counts, init_fracs, col_mask, gamma, n
 
     def iteration(fracs, it_key):
         weighted = probs * fracs[None, :]
-        row_sums = weighted.sum(axis=1, keepdims=True)
+        row_sums = backend.fixed_order_sum(weighted, 1)[:, None]
         posteriors = jnp.where(row_sums > 0, weighted / row_sums, 0.0)
 
         thin_key, gamma_key = jax.random.split(it_key)
-        path_counts = _multinomial_rows(thin_key, counts, posteriors).sum(axis=0)
+        path_counts = backend.fixed_order_sum(
+            _multinomial_rows(thin_key, counts, posteriors), 0
+        )
 
         # Explicit dtype: random.gamma otherwise draws at the x64
         # canonical float, breaking the f32 carry of device buffers.
@@ -60,7 +62,7 @@ def _gibbs_read_counts_masked(key, probs, counts, init_fracs, col_mask, gamma, n
             jax.random.gamma(gamma_key, path_counts + gamma, dtype=fracs.dtype)
             * col_mask
         )
-        new_fracs = draws / draws.sum()
+        new_fracs = draws / backend.fixed_order_sum(draws, 0)
         return new_fracs, new_fracs
 
     keys = jax.random.split(key, num_samples * thin_its)
@@ -267,7 +269,28 @@ def run_batched_gibbs(
     if _native_gibbs_enabled():
         backend.count_work("gibbs", False, len(cluster_inputs))
         return run_native_gibbs(cluster_inputs, rng_keys, num_samples, thin_its, gamma)
-    backend.count_work("gibbs", True, len(cluster_inputs))
+
+    from .batching import _ceil_pow2, _ceil_pow4, hybrid_host_indices
+
+    # On an accelerator, clusters below the EM hybrid cutoff sample on
+    # the native host sampler too, so a cluster's EM and its sampler
+    # run on the same engine.
+    results = [None] * len(cluster_inputs)
+    host_idx = hybrid_host_indices([item[0] for item in cluster_inputs])
+    if host_idx:
+        backend.count_work("gibbs", False, len(host_idx))
+        host_results = run_native_gibbs(
+            [cluster_inputs[idx] for idx in host_idx],
+            [rng_keys[idx] for idx in host_idx],
+            num_samples if np.ndim(num_samples) == 0
+            else [num_samples[idx] for idx in host_idx],
+            thin_its, gamma,
+        )
+        for idx, result in zip(host_idx, host_results):
+            results[idx] = result
+    host_set = set(host_idx)
+    device_idx = [idx for idx in range(len(cluster_inputs)) if idx not in host_set]
+    backend.count_work("gibbs", True, len(device_idx))
 
     per_job = None
     if np.ndim(num_samples) != 0:
@@ -275,23 +298,20 @@ def run_batched_gibbs(
         # bitwise equal to the exact-size run, so sample the max and
         # slice per job.
         per_job = [int(s) for s in num_samples]
-        num_samples = max(per_job, default=0)
+        num_samples = max((per_job[idx] for idx in device_idx), default=0)
         size = 1  # pow2 pad keeps the jit shape population small
         while size < num_samples:
             size *= 2
         num_samples = size
 
-    from .batching import _ceil_pow2, _ceil_pow4
-
     if dtype is None:
         dtype = backend.device_dtype()
 
     buckets = {}
-    for idx, item in enumerate(cluster_inputs):
-        R, C = item[0].shape
+    for idx in device_idx:
+        R, C = cluster_inputs[idx][0].shape
         buckets.setdefault((_ceil_pow4(R), _ceil_pow2(C)), []).append(idx)
 
-    results = [None] * len(cluster_inputs)
     for (R_pad, C_pad), indices in buckets.items():
         max_batch = max(1, max_bucket_rows // R_pad) * 8
         for chunk_start in range(0, len(indices), max_batch):

@@ -8,12 +8,12 @@ size-sorted clusters (/root/reference/src/main.cpp:827-998) maps onto a
 one JAX device is visible, :func:`shard_batched` places each stack with
 its batch axis split across the mesh before the jitted kernel runs, so
 XLA SPMD-partitions the computation with no collectives (per-cluster
-reductions never cross the batch axis).  Per-cluster math is unchanged:
-on the CPU backend outputs stay byte-identical to the single-device run
-(pinned by tests/test_mesh.py on a forced 8-device CPU mesh); on GPUs
-each device compiles its smaller batch separately and may round the
-last bits differently, so outputs agree within float32 rounding
-(chip_smoke.py --four-cards).
+reductions never cross the batch axis).  Per-cluster math is unchanged,
+and the kernels sum in a fixed order (backend.fixed_order_sum) rather
+than in whatever order the compiler picks for the smaller per-device
+batch, so outputs stay byte-identical to the single-device run: pinned
+by tests/test_mesh.py on a forced 8-device CPU mesh, and by
+chip_smoke.py --four-cards on four GPUs.
 
 Chunks whose batch size does not divide the mesh stay on the default
 device — the dispatch sites pad batch axes to powers of two, so only

@@ -153,6 +153,14 @@ def _load_spilled_payload(spilled):
     return (*views, unaligned)
 
 
+def _pin_worker_to_cpu():
+    """Pool initializer: a fragment worker's JAX, should anything call
+    it, runs on the CPU and never opens the parent's accelerator."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+
+
 def _shard_worker(args):
     import dataclasses
     import time as _time
@@ -185,6 +193,11 @@ def _shard_worker(args):
         columnar=True,
     )
     scan_s = _time.perf_counter() - scan_start
+    from ..backend import initialised_platform
+
+    # The scan is host code: a worker that opened an accelerator would
+    # contend with the parent for its memory.
+    assert initialised_platform() in (None, "cpu"), "a fragment worker opened a device"
     from ..pipeline import ColumnarFragmentIndex
 
     if isinstance(index, ColumnarFragmentIndex):
@@ -440,10 +453,12 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
     Start method: `fork` by default on platforms that have it — workers
     inherit the parent-built path index and finder copy-on-write, so
     per-worker startup is process spawn only (the workers run pure
-    native/numpy code and never touch the JAX backend).  A parent that
-    already drives an accelerator spawns instead: its device runtime's
-    threads make fork unsafe.  Workers are pinned to the CPU platform,
-    so none ever opens the accelerator.  Override with
+    native/numpy code and never touch the JAX backend).  The parent
+    forks before it starts its own JAX platform, which then comes up
+    while the workers scan; a caller that already started an
+    accelerator gets spawned workers instead, since its device
+    runtime's threads make fork unsafe.  Workers are pinned to the CPU
+    platform, so none ever opens the accelerator.  Override with
     RPVG_TPU_MP_CONTEXT=spawn (workers then rebuild state from the
     pickled config)."""
     import multiprocessing as mp
@@ -460,7 +475,7 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
 
     import time as _time
 
-    from ..backend import initialised_platform
+    from ..backend import initialised_platform, platform
 
     can_fork = "fork" in mp.get_all_start_methods() and initialised_platform() in (
         None, "cpu",
@@ -488,17 +503,8 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
     from ..pipeline import submit_info_parse
 
     frag_start = _time.perf_counter()
-    worker_env = {"JAX_PLATFORMS": "cpu", "CUDA_VISIBLE_DEVICES": ""}
-    saved_env = {key: _os.environ.get(key) for key in worker_env}
-    _os.environ.update(worker_env)
-    try:
-        pool = ctx.Pool(num_workers)
-    finally:
-        for key, value in saved_env.items():
-            if value is None:
-                _os.environ.pop(key, None)
-            else:
-                _os.environ[key] = value
+    pool = ctx.Pool(num_workers, initializer=_pin_worker_to_cpu)
+    log(f"Fragment pass: {num_workers} worker processes ({ctx_name})")
     # Overlap the info-TSV parse with the worker scan, exactly like the
     # single-process pipeline (shared helper so the arguments cannot
     # diverge between the two drivers).  Submitted AFTER the pool fork:
@@ -507,6 +513,9 @@ def run_pipeline_multiprocess(config: PipelineConfig, num_workers: int) -> Dict:
     # post-merge in the parent, so it loses no overlap by starting here.
     info_future = submit_info_parse(config)
     try:
+        # The parent's platform starts only now that the workers exist,
+        # and overlaps their scan; one that cannot start ends the run.
+        platform()
         shard_payloads = pool.map(_shard_worker, worker_args)
     except BaseException:
         # Workers that already spilled their payload to tmpfs leave

@@ -94,7 +94,7 @@ def _small_dataset(tmp_path):
     return paths
 
 
-@pytest.mark.parametrize("how", ["--backend", "JAX_PLATFORMS"])
+@pytest.mark.parametrize("how", ["--backend", "JAX_PLATFORMS", "--multiprocess"])
 def test_missing_gpu_is_rc1_without_fallback(tmp_path, how):
     """A GPU that is asked for and absent: one ERROR line, rc 1, no
     output files, no CPU run."""
@@ -108,6 +108,9 @@ def test_missing_gpu_is_rc1_without_fallback(tmp_path, how):
     ]
     if how == "--backend":
         cmd += ["--backend", "gpu"]
+    elif how == "--multiprocess":
+        # The platform starts after the workers fork, and still fails.
+        cmd += ["--backend", "gpu", "--multiprocess", "2"]
     else:
         env["JAX_PLATFORMS"] = "cuda"
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
@@ -202,20 +205,25 @@ def test_diploid_device_path_matches_native(device_on, monkeypatch):
         np.testing.assert_allclose(matrix, native[idx], rtol=1e-5)
 
 
-def test_readcount_gibbs_device_path_matches_native(device_on):
-    """Device (threefry, float32) vs native (mt19937, float64) samplers:
-    the same distribution, per-path means within 6 standard errors."""
-    from rpvg_tpu.infer import readcount_gibbs as rg
-
-    rng = np.random.default_rng(21)
+def _gibbs_jobs(shapes, seed=21):
+    rng = np.random.default_rng(seed)
     jobs = []
-    for R, P in ((50, 5), (30, 3)):
+    for R, P in shapes:
         probs = rng.random((R, P + 1)) * 0.5
         probs /= probs.sum(axis=1, keepdims=True)
         counts = rng.integers(1, 12, size=R).astype(np.float64)
         total = float(counts.sum())
         jobs.append((probs, counts, np.full(P, total / (P + 1)), total / (P + 1), total))
-    keys = [np.asarray(jax.random.PRNGKey(i)) for i in range(len(jobs))]
+    return jobs, [np.asarray(jax.random.PRNGKey(i)) for i in range(len(jobs))]
+
+
+def test_readcount_gibbs_device_path_matches_native(device_on, monkeypatch):
+    """Device (threefry, float32) vs native (mt19937, float64) samplers:
+    the same distribution, per-path means within 6 standard errors."""
+    from rpvg_tpu.infer import readcount_gibbs as rg
+
+    monkeypatch.setenv("RPVG_TPU_HYBRID_EM_AREA", "0")
+    jobs, keys = _gibbs_jobs(((50, 5), (30, 3)))
     dev = rg.run_batched_gibbs(jobs, keys, 300, 20)
     host = rg.run_native_gibbs(jobs, keys, 300, 20)
     assert backend.WORK["gibbs.device"] == len(jobs)
@@ -226,14 +234,40 @@ def test_readcount_gibbs_device_path_matches_native(device_on):
             assert abs(a.mean() - b.mean()) <= 6 * se + 1e-9
 
 
+@pytest.mark.parametrize(
+    "cutoff, on_host",
+    [(None, [0, 1, 2]), ("0", []), ("100", [1, 2]), ("1000", [0, 1, 2])],
+)
+def test_readcount_gibbs_follows_the_em_hybrid_cutoff(device_on, monkeypatch, cutoff, on_host):
+    """On an accelerator, clusters below RPVG_TPU_HYBRID_EM_AREA sample
+    on the native sampler, bitwise as run_native_gibbs does; the rest
+    sample on the device, with per-job sample counts honoured."""
+    from rpvg_tpu.infer import readcount_gibbs as rg
+
+    if cutoff is not None:
+        monkeypatch.setenv("RPVG_TPU_HYBRID_EM_AREA", cutoff)
+    jobs, keys = _gibbs_jobs(((40, 4), (12, 3), (9, 2)))
+    samples = [6, 4, 5]
+    out = rg.run_batched_gibbs(jobs, keys, samples, 3)
+    assert backend.WORK["gibbs.host"] == len(on_host)
+    assert backend.WORK["gibbs.device"] == len(jobs) - len(on_host)
+    native = rg.run_native_gibbs(jobs, keys, samples, 3)
+    for idx, ((noise, paths), (n_noise, n_paths)) in enumerate(zip(out, native)):
+        assert paths.shape == n_paths.shape == (samples[idx], jobs[idx][0].shape[1] - 1)
+        assert noise.shape == (samples[idx],)
+        if idx in on_host:
+            np.testing.assert_array_equal(paths, n_paths)
+            np.testing.assert_array_equal(noise, n_noise)
+        np.testing.assert_allclose(noise + paths.sum(axis=1), jobs[idx][4], rtol=1e-5)
+
+
 def test_escalations_go_to_the_device(device_on, monkeypatch, tmp_path):
     """On an accelerator the bounded-EM escalations of the default
-    haplotype-transcripts path run on the device; on the CPU (default
-    RPVG_TPU_ESC_MIN_AREA) they stay on the host.  Both agree with the
-    uninterrupted native run within the convergence tolerance."""
+    haplotype-transcripts path run on the device; on the CPU they stay
+    on the host, bitwise equal to the uninterrupted native run.  The
+    device run agrees with it within the convergence tolerance."""
     from rpvg_tpu import sim
     from rpvg_tpu.alignments import parse_multipath_alignment
-    from rpvg_tpu.infer import batched_models
     from rpvg_tpu.pipeline import PipelineConfig, run_pipeline
 
     panel = sim.build_gene_panel(
@@ -266,11 +300,9 @@ def test_escalations_go_to_the_device(device_on, monkeypatch, tmp_path):
         return np.array([float(r[5]) for r in rows])
 
     monkeypatch.setenv("RPVG_TPU_EM_BOUND", "4")
-    assert batched_models._esc_min_area() == 0
     on_device = run("device")
     assert backend.WORK["em.device"] > 0
     monkeypatch.setattr(backend, "device_enabled", lambda: False)
-    assert batched_models._esc_min_area() == 10**12
     backend.WORK.clear()
     on_host = run("host")
     assert backend.WORK["em.device"] == 0
@@ -288,7 +320,9 @@ def test_escalations_go_to_the_device(device_on, monkeypatch, tmp_path):
 )
 def test_device_contractions_ask_for_highest_precision(kernel):
     """Every contraction in the device kernels carries
-    precision=HIGHEST, so a GPU never rounds it through TF32."""
+    precision=HIGHEST, so a GPU never rounds it through TF32.  The
+    batched kernels sum with backend.fixed_order_sum instead and hold
+    no contraction at all."""
     import jax.numpy as jnp
 
     from rpvg_tpu.infer import posteriors
@@ -317,18 +351,20 @@ def test_device_contractions_ask_for_highest_precision(kernel):
         fn = lambda: score(ones(R, P), ones(R), ones(R), jnp.zeros(P, f))  # noqa: E731
     text = str(jax.make_jaxpr(fn)())
     dots = text.count("dot_general")
+    if kernel in ("em", "pair_scores_batched", "group_scores", "gibbs_conditionals"):
+        assert dots == 0
+        return
     assert dots > 0
     assert text.count("precision=(Precision.HIGHEST, Precision.HIGHEST)") >= dots
 
 
-def _batched_kernel(kernel):
-    """(jitted batched kernel, its (B, ...) float32 arguments) at B=8."""
+def _batched_kernel(kernel, B=8, R=24, P=6):
+    """(jitted batched kernel, its (B, ...) float32 arguments)."""
     import jax.numpy as jnp
 
     from rpvg_tpu.infer import em, posteriors, readcount_gibbs
 
     rng = np.random.default_rng(12)
-    B, R, P = 8, 24, 6
     probs = rng.random((B, R, P)).astype(np.float32)
     counts = rng.integers(0, 7, (B, R)).astype(np.float32)
     noise = (rng.random((B, R)) * 1e-3).astype(np.float32)
@@ -361,13 +397,34 @@ def _batched_kernel(kernel):
     "kernel", ["em", "pair_scores_batched", "group_scores", "readcount_gibbs"]
 )
 def test_batched_kernels_are_batch_size_invariant_on_cpu(kernel):
-    """On the CPU backend each cluster's result is bitwise the same in a
-    batch of 8 and in a batch of 2 (what one of four devices holds when
-    autoshard splits the batch): the property behind the CPU mesh's
-    byte-identical outputs.  The GPU does not have it (PERF.md)."""
+    """Each cluster's result is bitwise the same in a batch of 8 and in
+    a batch of 2 (what one of four devices holds when autoshard splits
+    the batch): the property behind the mesh's byte-identical outputs.
+    The kernels' sums run in a fixed order, so the GPU has it too;
+    tests/test_gpu.py checks it on the card."""
     fn, args = _batched_kernel(kernel)
     full = jax.tree.leaves(fn(*args))
     part = jax.tree.leaves(fn(*[a[2:4] for a in args]))
     for whole, piece in zip(full, part):
         if np.ndim(whole) and np.shape(whole)[0] == 8:
             np.testing.assert_array_equal(np.asarray(whole)[2:4], np.asarray(piece))
+
+
+@pytest.mark.parametrize("shape, axis", [((5, 8), 1), ((7, 3, 12), 1), ((33,), 0), ((4, 1), 1)])
+def test_fixed_order_sum_matches_sum(shape, axis):
+    x = np.random.default_rng(sum(shape)).standard_normal(shape).astype(np.float32)
+    got = np.asarray(backend.fixed_order_sum(x, axis))
+    assert got.shape == np.sum(x, axis=axis).shape
+    np.testing.assert_allclose(got, x.astype(np.float64).sum(axis=axis), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n, padded", [(5, 8), (8, 16), (13, 64)])
+def test_fixed_order_sum_ignores_zero_padding(n, padded):
+    """Zero padding of the summed axis, as the buckets pad clusters,
+    leaves every bit of the sum unchanged."""
+    x = np.random.default_rng(n).random((6, n)).astype(np.float32)
+    wide = np.zeros((6, padded), np.float32)
+    wide[:, :n] = x
+    np.testing.assert_array_equal(
+        np.asarray(backend.fixed_order_sum(x, 1)), np.asarray(backend.fixed_order_sum(wide, 1))
+    )

@@ -164,6 +164,43 @@ def test_multiprocess_runner(dataset, tmp_path):
         assert a.read() == b.read()
 
 
+@pytest.mark.parametrize(
+    "parent_platform, start_method", [(None, "fork"), ("cpu", "fork"), ("gpu", "spawn")]
+)
+def test_multiprocess_starts_the_platform_after_the_workers(
+    dataset, tmp_path, monkeypatch, capsys, parent_platform, start_method
+):
+    """The workers fork before the parent starts its JAX platform, which
+    comes up while they scan; a parent that already drives an
+    accelerator spawns them instead.  Outputs are byte-identical."""
+    import multiprocessing.pool
+
+    from rpvg_tpu import backend
+    from rpvg_tpu.parallel.multihost import run_pipeline_multiprocess
+
+    base_prefix = str(tmp_path / "base")
+    run_pipeline(base_config(dataset, base_prefix))
+
+    events = []
+    pool_init = multiprocessing.pool.Pool.__init__
+    platform = backend.platform
+
+    def recording_pool_init(self, *args, **kwargs):
+        events.append("pool")
+        pool_init(self, *args, **kwargs)
+
+    monkeypatch.setattr(multiprocessing.pool.Pool, "__init__", recording_pool_init)
+    monkeypatch.setattr(backend, "platform", lambda: events.append("platform") or platform())
+    monkeypatch.setattr(backend, "initialised_platform", lambda: parent_platform)
+    capsys.readouterr()
+    prefix = str(tmp_path / "mp")
+    run_pipeline_multiprocess(base_config(dataset, prefix), 2)
+    assert events[:2] == ["pool", "platform"]
+    assert f"2 worker processes ({start_method})" in capsys.readouterr().err
+    with open(base_prefix + ".txt") as a, open(prefix + ".txt") as b:
+        assert a.read() == b.read()
+
+
 def test_multiprocess_tmpfs_payload(dataset, tmp_path, monkeypatch):
     """Workers spilling their columnar dumps through /dev/shm (the
     large-payload transfer path, forced here with a 1-byte threshold)

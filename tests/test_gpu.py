@@ -54,3 +54,28 @@ def test_pair_scores_on_the_card_match_native(gpu_device):
     for idx, matrix in scores:
         np.testing.assert_allclose(matrix, native[idx], rtol=1e-5)
 
+
+
+@pytest.mark.parametrize(
+    "kernel, sizes",
+    [
+        ("em", (64, 256, 64)),
+        ("pair_scores_batched", (32, 256, 32)),
+        ("group_scores", (64, 256, 16)),
+        ("readcount_gibbs", (16, 64, 16)),
+    ],
+)
+def test_batched_kernels_are_batch_size_invariant_on_the_card(gpu_device, kernel, sizes):
+    """A quarter of a batch, as one of four cards holds it under the data
+    mesh, gives each of its clusters the same bits as the whole batch."""
+    import jax
+
+    from test_backend import _batched_kernel
+
+    B, R, P = sizes
+    fn, args = _batched_kernel(kernel, B, R, P)
+    full = jax.tree.leaves(fn(*args))
+    part = jax.tree.leaves(fn(*[a[B // 4 : B // 2] for a in args]))
+    for whole, piece in zip(full, part):
+        if np.ndim(whole) and np.shape(whole)[0] == B:
+            np.testing.assert_array_equal(np.asarray(whole)[B // 4 : B // 2], np.asarray(piece))

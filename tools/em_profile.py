@@ -9,8 +9,7 @@ routed to the device, pads them into the buckets run_batched_em uses,
 and reports, each after a warm-up call:
 
 * the whole mix at the production setting (--max-em-its 10000,
-  --max-rel-em-conv 1e-3) in float32 and float64, and float32 with the
-  contractions at DEFAULT precision instead of HIGHEST;
+  --max-rel-em-conv 1e-3) in float32 and float64;
 * the cost of one while-loop iteration per bucket (fixed iteration
   count, convergence off);
 * from a jax.profiler trace of one fixed-iteration pass over the mix:
@@ -110,18 +109,16 @@ def main() -> int:
     import jax
 
     import chip_smoke
-    from rpvg_tpu import backend
-    from rpvg_tpu.infer import batching, em
+    from rpvg_tpu.infer import batching
 
     try:
         chip_smoke.device_check(1)
     except chip_smoke.CheckFailed as exc:
         print(exc, file=sys.stderr)
         return 1
-    data_dir = os.path.join(REPO, "smoke_data", "data")
     work_dir = os.path.join(REPO, "smoke_data", "profile")
     os.makedirs(work_dir, exist_ok=True)
-    chip_smoke.make_data(data_dir, args.pairs, args.transcripts)
+    data_dir = chip_smoke.make_data(args.pairs, args.transcripts)
     with chip_smoke.Env(RPVG_TPU_HYBRID_EM_AREA="0"):
         with chip_smoke.Recorder([(batching, "dispatch_em_device")]) as rec:
             chip_smoke.run_gpu_cli(
@@ -139,14 +136,11 @@ def main() -> int:
     print(f"mix: {len(inputs)} clusters in {len(plan)} chunks, "
           f"{useful} useful / {padded} padded matrix elements")
 
-    for label, dtype, precision in (
-        ("float32 HIGHEST", np.float32, jax.lax.Precision.HIGHEST),
-        ("float64 HIGHEST", np.float64, jax.lax.Precision.HIGHEST),
-        ("float32 DEFAULT", np.float32, jax.lax.Precision.DEFAULT),
-        ("float32 HIGHEST (again)", np.float32, jax.lax.Precision.HIGHEST),
+    for label, dtype in (
+        ("float32", np.float32),
+        ("float64", np.float64),
+        ("float32 (again)", np.float32),
     ):
-        backend.MATMUL_PRECISION = precision
-        jax.clear_caches()
         blocks = device_blocks(inputs, plan, dtype)
         run_production(blocks)  # compile + warm
         prod = [run_production(blocks) for _ in range(3)]
@@ -160,9 +154,6 @@ def main() -> int:
             f"{fixed * 1e3:.2f} ms = {fixed / FIXED_ITS * 1e6:.1f} us per iteration over "
             f"{len(blocks)} chunks"
         )
-    backend.MATMUL_PRECISION = jax.lax.Precision.HIGHEST
-    jax.clear_caches()
-
     blocks = device_blocks(inputs, plan, np.float32)
     run_mix(blocks, FIXED_ITS, 0.0)
     for (chunk, R_pad, C_pad), block in sorted(
