@@ -117,9 +117,11 @@ def initialised_platform() -> Optional[str]:
 
 def pin_platform(name: str) -> None:
     """Pin this process to JAX platform `name` without starting it: the
-    first :func:`platform` call starts it."""
+    first :func:`platform` call starts it.  ``gpu`` means an NVIDIA GPU:
+    JAX expands that alias to ``cuda,rocm`` and fails unless both
+    plugins are installed."""
     global _PLATFORM
-    jax.config.update("jax_platforms", name)
+    jax.config.update("jax_platforms", "cuda" if name == "gpu" else name)
     with _LOCK:
         _PLATFORM = None
 

@@ -55,6 +55,14 @@ def test_predicate_and_dtype_per_platform(monkeypatch, platform, enabled, dtype)
     assert backend.device_dtype() is dtype
 
 
+@pytest.mark.parametrize("name, pinned", [("gpu", "cuda"), ("cuda", "cuda"), ("cpu", "cpu")])
+def test_pin_platform_names_one_jax_platform(monkeypatch, name, pinned):
+    updates = []
+    monkeypatch.setattr(jax.config, "update", lambda key, value: updates.append((key, value)))
+    backend.pin_platform(name)
+    assert updates == [("jax_platforms", pinned)]
+
+
 def test_platform_is_resolved_once(monkeypatch):
     calls = []
     monkeypatch.setattr(jax, "default_backend", lambda: calls.append(1) or "cpu")
